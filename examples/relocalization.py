@@ -20,7 +20,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 import jax
 import numpy as np
 
-jax.config.update("jax_platforms", "cpu") if "--tpu" not in sys.argv else None
+jax.config.update("jax_platforms", "cpu") if "--device" not in sys.argv else None
 
 import jax.numpy as jnp
 

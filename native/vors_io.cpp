@@ -1,13 +1,13 @@
 // vors_io — native data-loader core for visual_odometry_rs_tpu.
 //
-// TPU-native equivalent of the reference's native IO layer
+// Native equivalent of the reference's IO layer
 // (src/misc/helper.rs:13-36 `read_png_16bits`, src/misc/interop.rs and the
 // image crate's `to_luma` used at src/bin/vors_track.rs:141-143): libpng
 // decode of 16-bit grayscale depth PNGs and 8-bit gray/RGB color PNGs with
 // the image crate's integer BT.601 luma ((299R + 587G + 114B) / 1000), plus
 // a multi-threaded prefetching frame loader (the reference decodes frames
 // one-by-one on the tracking thread; here decode overlaps device compute so
-// host IO never stalls the TPU step).
+// host IO never stalls the device step).
 //
 // Exposed as a plain C API consumed from Python via ctypes
 // (visual_odometry_rs_tpu/native/__init__.py).  No Python.h dependency.

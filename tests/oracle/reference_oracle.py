@@ -3,7 +3,7 @@
 A deliberately slow, per-pixel/per-candidate transliteration of the reference
 Rust pipeline (``/root/reference``), kept in f32 discipline so it reproduces
 the reference's arithmetic as closely as NumPy allows.  It exists purely as an
-executable *oracle*: ``tests/test_oracle.py`` asserts that the production TPU
+executable *oracle*: ``tests/test_oracle.py`` asserts that the production JAX
 implementation (fixed-shape masked arrays, fused matmul reductions,
 ``lax.while_loop`` LM) is numerically equivalent to this faithful scalar
 rendition of the reference semantics.

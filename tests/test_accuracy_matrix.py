@@ -28,7 +28,7 @@ CORE = {
     "c2f_huber_nobr_noref": 0.004,
     "c2f_l2_br_noref": 0.006,
     "c2f_huber_br_noref": 0.006,
-    "dso_l2_nobr_noref": 0.008,       # a=0.2 scene-tuned (docs/PERF.md)
+    "dso_l2_nobr_noref": 0.008,       # a=0.2 scene-tuned (tools/accuracy_matrix.py)
     "dsofix_l2_nobr_noref": 0.008,
     "dsofix_huber_br_noref": 0.010,
     "c2f_l2_nobr_noref_cv": 0.004,    # warm start must not degrade

@@ -6,10 +6,12 @@ an external evaluation repo (SURVEY §4).
 """
 
 import io
+import os
 import sys
 from contextlib import redirect_stdout
 
 import numpy as np
+import pytest
 
 from visual_odometry_rs_tpu.cli import vors_track
 from visual_odometry_rs_tpu.dataset import synthetic, tum_rgbd
@@ -808,7 +810,7 @@ def test_cli_slam_long_trajectory_bounded_memory(tmp_path):
     trajectory whose every frame becomes a keyframe — 200+ keyframes through
     vors_slam with the disk keyframe store, spatial-hash loop proposal, and
     the sparse PGO back-end.  Asserts loop closures verify at scale and
-    records wall time + peak RSS of the subprocess (the PERF.md line)."""
+    records wall time + peak RSS of the subprocess."""
     import resource
     import subprocess
     import sys as _sys
@@ -838,6 +840,8 @@ def test_cli_slam_long_trajectory_bounded_memory(tmp_path):
          "--kf-store", "disk", "--loop-min-gap", "20",
          "--loop-max-candidates", "8"],
         capture_output=True, text=True, timeout=3000,
+        # the CLI caches compiled programs in the checkout by default
+        env={**os.environ, "JAX_ENABLE_COMPILATION_CACHE": "false"},
     )
     wall = time.perf_counter() - t0
     after = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss
@@ -1113,3 +1117,36 @@ def test_cli_slam_front_end_knobs(tmp_path):
     assert len(frames) == 5
     err = ate.ate_rmse([f.pose for f in frames], seq.poses[1:])
     assert err < 8e-3, err
+
+
+@pytest.mark.parametrize("case", ["env", "flag", "default"])
+def test_compilation_cache_dir(case, tmp_path, monkeypatch):
+    """One helper places the persistent compile cache for every entry
+    point: JAX_COMPILATION_CACHE_DIR wins and nothing is set; otherwise
+    --compilation-cache; otherwise the fixed <checkout>/.jax_cache."""
+    import argparse
+    import pathlib
+
+    import jax
+
+    from visual_odometry_rs_tpu.cli import _common
+
+    before = jax.config.jax_compilation_cache_dir
+    flag = str(tmp_path / "flag")
+    args = argparse.Namespace(compilation_cache=flag if case != "default" else None)
+    try:
+        if case == "env":
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env"))
+            assert _common.enable_compilation_cache(flag) == str(tmp_path / "env")
+            _common.apply_compilation_cache(args)
+            assert jax.config.jax_compilation_cache_dir == before
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            _common.apply_compilation_cache(args)
+            want = flag if case == "flag" else _common.DEFAULT_CACHE_DIR
+            assert jax.config.jax_compilation_cache_dir == want
+        checkout = pathlib.Path(_common.__file__).resolve().parents[2]
+        assert _common.DEFAULT_CACHE_DIR == str(checkout / ".jax_cache")
+        assert ".jax_cache/" in (checkout / ".gitignore").read_text().split()
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

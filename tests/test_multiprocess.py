@@ -2,7 +2,7 @@
 
 VERDICT round-1 item 5: the ``jax.distributed`` path had never been
 executed.  This test spawns TWO separate Python processes (the CPU analog of
-two hosts over DCN), initializes the distributed runtime through
+two hosts), initializes the distributed runtime through
 ``parallel.mesh.init_distributed``, builds a global 2-device mesh spanning
 both processes, psums a token, and runs one candidate-sharded LM level solve
 (``parallel.sharded.solve_level_point_sharded``) on a real synthetic

@@ -2,7 +2,7 @@
 
 ``tests/oracle/reference_oracle.py`` is a deliberately slow per-pixel NumPy
 transliteration of the reference Rust pipeline.  These tests prove the
-production TPU implementation (fixed-shape masked arrays, fused matmul
+production JAX implementation (fixed-shape masked arrays, fused matmul
 reductions, ``lax.while_loop`` LM) is numerically equivalent to the reference
 semantics on tiny synthetic TUM-layout scenes:
 

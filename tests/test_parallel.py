@@ -258,15 +258,46 @@ def test_track_sequence_switch_branch(seqs):
 
 
 def test_batched_interp_auto_resolution(monkeypatch):
-    """"auto" resolves to onehot_weighted in batched drivers on TPU only;
-    explicit methods pass through untouched (docs/PERF.md batch-32 A/B)."""
-    cfg = tracker_mod.TrackerConfig(height=48, width=64, interp_method="auto")
-    # CPU backend (tests): identity
-    assert batch_mod._resolve_batched_interp(cfg).interp_method == "auto"
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert batch_mod._resolve_batched_interp(cfg).interp_method == "onehot_weighted"
-    explicit = tracker_mod.TrackerConfig(height=48, width=64, interp_method="onehot")
-    assert batch_mod._resolve_batched_interp(explicit).interp_method == "onehot"
+    """Batched "auto" samples with ``gather`` on every backend: the batched
+    tracking functions pass the config through unchanged and
+    ``interp.bilinear`` routes "auto" to ``bilinear_gather``."""
+    from visual_odometry_rs_tpu.ops import interp as interp_mod
+
+    calls = []
+    real_gather = interp_mod.bilinear_gather
+
+    def spy_gather(img, x, y):
+        calls.append("gather")
+        return real_gather(img, x, y)
+
+    def refuse(img, x, y):
+        raise AssertionError("auto must not pick a one-hot sampler")
+
+    monkeypatch.setattr(interp_mod, "bilinear_gather", spy_gather)
+    monkeypatch.setattr(interp_mod, "bilinear_onehot", refuse)
+    monkeypatch.setattr(interp_mod, "bilinear_onehot_weighted", refuse)
+    seq = synthetic.generate_sequence(nb_frames=2, height=48, width=64, seed=3)
+    cfg = tracker_mod.TrackerConfig(
+        height=48, width=64, nb_levels=3, candidate_cap=256, interp_method="auto"
+    )
+    B = 2
+    d = jnp.broadcast_to(jnp.asarray(seq.depths[0]), (B, 48, 64))
+    g = jnp.broadcast_to(jnp.asarray(seq.grays[0]), (B, 48, 64))
+    state = batch_mod.batched_init_state(cfg, seq.intrinsics, d, g)
+    d1 = jnp.broadcast_to(jnp.asarray(seq.depths[1]), (B, 48, 64))
+    g1 = jnp.broadcast_to(jnp.asarray(seq.grays[1]), (B, 48, 64))
+    jax.eval_shape(
+        lambda s, dd, gg: batch_mod.batched_track_step(cfg, seq.intrinsics, s, dd, gg),
+        state, d1, g1,
+    )
+    jax.eval_shape(
+        lambda s, dd, gg: batch_mod.batched_track_sequence(
+            cfg, seq.intrinsics, s, dd, gg
+        ),
+        state, d1[None], g1[None],
+    )
+    assert calls and set(calls) == {"gather"}
+
 
 def test_batched_switch_cadence():
     """switch_cadence batches diverse-lane keyframe switches onto check
@@ -875,7 +906,7 @@ def test_fused_scan_production_shape_soak():
     round-3 item 7): the fused batched scan at 640x480 / 6 levels /
     cap 4096, B=8, with forced switching + sub-batch compaction + the
     relocalization ring, sharded over the mesh.  Big shapes otherwise run
-    only inside TPU benches, so shape/memory/layout bugs at the operating
+    only inside accelerator benches, so shape/memory/layout bugs at the operating
     point `bench.py` claims would be invisible to CI.  ~2-6 min on the
     1-core test box (compile-dominated)."""
     B, F = 8, 4
@@ -943,7 +974,7 @@ def test_warm_start_velocity_cuts_iterations_and_holds_accuracy():
     """constant_velocity warm start on smooth diverse motion: no failures,
     total LM iterations strictly below the reference constant-position
     init's, and per-lane final poses at least as accurate vs ground truth.
-    (The TPU fps study lives in tools/ab_warmstart.py; this pins the
+    (The fps study lives in tools/ab_warmstart.py; this pins the
     iteration mechanism and the accuracy direction.)"""
     import dataclasses
 

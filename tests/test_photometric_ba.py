@@ -351,7 +351,7 @@ def test_window_batched_matches_per_window():
     batched_mesh = photometric_ba.solve_window_batched(stacked, mesh, **opts)
 
     # under vmap XLA lowers the reductions/contractions differently
-    # (docs/PERF.md: batched lowering changes), so lanes agree to f32
+    # (batched lowering changes), so lanes agree to f32
     # lowering noise accumulated over the LM iterations, not bit-exactly
     for res in (batched, batched_mesh):
         for b, single in enumerate(singles):

@@ -104,7 +104,7 @@ def test_track_frame_identity_motion(seq):
 
 
 def test_interp_methods_agree(seq):
-    # "gather" (XLA) and "onehot" (MXU) paths must produce the same track.
+    # "gather" (XLA gather) and "onehot" (one-hot matmul) paths must produce the same track.
     t1 = make_tracker(seq)
     t2 = make_tracker(seq, interp_method="onehot")
     e1 = run_tracking(seq, t1)
@@ -346,7 +346,7 @@ def test_candidate_cap_truncation_keeps_accuracy():
     Measured on this scene (finest level selects ~4324 candidates,
     120x160): ATE 0.00220 uncapped / 0.00211 @cap 1024 / 0.00258 @cap 256
     — a 17x truncation costs <1.25x ATE.  (At cap 128 / 34x it reaches
-    2.2x, recorded in docs/PERF.md as the cap guidance.)"""
+    2.2x: the floor for a sensible cap.)"""
     import jax
 
     from visual_odometry_rs_tpu.ops import pyramid as pyramid_ops

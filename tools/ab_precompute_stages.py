@@ -1,23 +1,17 @@
-"""HONEST in-graph stage breakdown of the batched keyframe precompute.
+"""In-graph stage breakdown of the batched keyframe precompute.
 
-Supersedes tools/ab_precompute_scale.py, whose harness carried only a
-scalar through the measurement scan and reduced only ``levels[0].idepth``
-— XLA dead-code-eliminated most of each stage, under-measuring the full
-precompute ~2x (10.98 ms "isolated" vs the 23.5 ms the production scan
-pays at B=32; tools/ab_cond_overhead.py proved the cond/select machinery
-itself costs ~0.1 ms, so the difference was all DCE).
-
-This harness carries the COMPLETE stage output tree as the scan carry and
+The harness carries the COMPLETE stage output tree as the scan carry and
 feeds a negligible function of it back into the inputs, so nothing is
-eliminable and nothing can be hoisted out of the loop.  Stages are
-cumulative prefixes of ``precompute_keyframe``:
+eliminable and nothing can be hoisted out of the loop (a harness that
+carries only a scalar lets XLA drop most of each stage and under-measures
+it).  Stages are cumulative prefixes of ``precompute_keyframe``:
 
     grad_select   gradients + squared-norms + coarse-to-fine mask
     idepth_pyr    + masked inverse depth + DSO-mean pyramid
     extract       + _extract_level_onehot at every level
     full          + warp Jacobians (= production precompute_keyframe)
 
-Run on the attached TPU:  python tools/ab_precompute_stages.py [lanes...]
+Run:  python tools/ab_precompute_stages.py [lanes...]
 """
 
 import json

@@ -16,7 +16,7 @@ switch cond does not confound:
 steady-state overhead / frame = healthy - none
 recovery cost / taken frame   = taken - healthy
 
-Run on the attached TPU:  python tools/ab_reloc_cost.py
+Run:  python tools/ab_reloc_cost.py
 """
 
 import dataclasses

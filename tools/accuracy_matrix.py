@@ -10,7 +10,7 @@ cv+budget} — the full knob surface of the tracker product.
 Run:  python tools/accuracy_matrix.py          # prints one JSON row per combo
 Test: tests/test_accuracy_matrix.py pins bounds on the core combos in CI.
 
-DSO default-threshold note (docs/PERF.md "Candidate selectors"): the DSO
+DSO default-threshold note: the DSO
 regional threshold ``a (mean3x3(median) + b)^2`` at the reference default
 ``a=1.0`` admits too few points on weakly-textured synthetic renders
 (ATE 0.0139 vs 0.0008 for coarse_to_fine); the matrix runs both DSO

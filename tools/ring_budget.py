@@ -4,7 +4,7 @@ The in-graph relocalization ring (``parallel.batch.RelocRing``) carries R
 complete ``KeyframeData`` pytrees per lane — per-candidate channels at
 every pyramid level plus the template pyramid images.  This tool prints
 the exact per-lane and total device footprint from ``jax.eval_shape`` (no
-allocation, no TPU), for the production operating point and any
+allocation), for the production operating point and any
 ``--batch/--cap/--slots/--levels`` override.
 
     python tools/ring_budget.py

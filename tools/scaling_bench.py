@@ -1,11 +1,10 @@
 """Per-chip batching scaling curve: fused-scan throughput vs batch size.
 
-The single-chip analog of the multi-host scaling-efficiency benchmark
-(BASELINE.md's third target): how close does throughput scale with the
-number of concurrent sequences on one chip?  Perfect batching would be
-linear until the MXU saturates; the curve shows where that knee is.
+How close does throughput scale with the number of concurrent sequences on
+one chip?  Perfect batching would be linear until the device saturates;
+the curve shows where that knee is.
 
-Run:  python tools/scaling_bench.py        (runs on the attached TPU)
+Run:  python tools/scaling_bench.py
 Prints one JSON line per batch size to stdout.
 """
 

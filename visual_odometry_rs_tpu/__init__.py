@@ -1,6 +1,6 @@
-"""visual_odometry_rs_tpu — a TPU-native direct visual odometry framework.
+"""visual_odometry_rs_tpu — a JAX direct visual odometry framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the Rust crate
+A from-scratch JAX/XLA re-design of the capabilities of the Rust crate
 `visual-odometry-rs` (mpizenberg/visual-odometry-rs): direct (photometric)
 RGB-D visual odometry with DSO-style sparse candidate points, multi-scale mean
 pyramids, inverse-compositional Lucas-Kanade image alignment on se(3), and
@@ -8,13 +8,13 @@ Levenberg-Marquardt minimization — plus the scaling layer the reference does
 not have: batched multi-sequence tracking, device meshes, and sharded
 residual/Hessian reductions.
 
-Layer map (mirrors reference `src/lib.rs:12-15`, re-designed TPU-first):
+Layer map (mirrors reference `src/lib.rs:12-15`, re-designed for fixed-shape accelerator programs):
 
 - ``utils``    : dtype policy, small helpers, visualization (ref ``misc::``)
 - ``math``     : Lie groups so3/se3, pose algebra, generic LM optimizer
                  harness (ref ``math::``)
 - ``ops``      : image compute ops — pyramids, gradients, bilinear sampling —
-                 as fused XLA ops and Pallas TPU kernels (the hot kernels of
+                 as fused XLA ops (the hot kernels of
                  ref ``core::multires``/``core::gradient``)
 - ``core``     : camera model, inverse depth, candidate selection
                  (ref ``core::``)

@@ -54,20 +54,24 @@ def main(argv=None) -> int:
         "switch together).  K=1 is reference-exact per-frame switching; "
         "K>1 trades slightly deferred switches for throughput when lanes "
         "switch on different frames (diverse sequences) — see "
-        "parallel/batch.py and docs/PERF.md",
+        "parallel/batch.py",
     )
     parser.add_argument(
         "--switch-subbatch", type=int, default=0, metavar="K",
         help="on switch frames, precompute only the pending lanes compacted "
         "into a fixed K-lane sub-batch (falls back to all-lanes when more "
         "than K pend at once).  Same results as 0 (off), cheaper on diverse "
-        "batches; -1 = auto (B/4, the measured TPU optimum) — see "
-        "parallel/batch.py and docs/PERF.md",
+        "batches; -1 = auto (B/4) — see parallel/batch.py",
     )
     parser.add_argument("--chunk", type=int, default=8, metavar="N",
                         help="frames per fused device dispatch")
     parser.add_argument(
-        "--interp", choices=["auto", "gather", "onehot", "onehot_weighted", "pallas"],
+        "--devices", type=int, default=0, metavar="N",
+        help="shard the lanes over the first N local devices when N > 1 "
+        "divides the lane count (0 = all local devices; 1 = no sharding)",
+    )
+    parser.add_argument(
+        "--interp", choices=["auto", "gather", "onehot", "onehot_weighted"],
         default="auto",
     )
     parser.add_argument(
@@ -109,7 +113,7 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--dso-a", type=float, default=1.0,
         help="DSO regional threshold coefficient a (lower on weak texture; "
-        "see docs/PERF.md 'Candidate selectors')",
+        "see tools/accuracy_matrix.py)",
     )
     parser.add_argument(
         "--warm-start", choices=["constant_position", "constant_velocity"],
@@ -142,14 +146,6 @@ def main(argv=None) -> int:
         "long runs into restartable pieces with --save-state/--resume",
     )
     args = parser.parse_args(argv)
-    if args.interp == "pallas" and (args.robust_delta > 0.0 or args.brightness_model):
-        print(
-            "--interp pallas is a retired reference kernel and does not "
-            "support --robust-delta/--brightness-model (see docs/PERF.md)",
-            file=sys.stderr,
-        )
-        return 1
-
     _common.apply_compilation_cache(args)
     if args.cpu:
         import jax
@@ -212,10 +208,14 @@ def main(argv=None) -> int:
     )
 
     # batch axis over the data mesh when it divides the device count
-    n_dev = jax.local_device_count()
+    local = jax.local_devices()
+    n_dev = args.devices or len(local)
+    if not 1 <= n_dev <= len(local):
+        print(f"--devices {args.devices}: {len(local)} local devices", file=sys.stderr)
+        return 1
     mesh = None
     if B % n_dev == 0 and n_dev > 1:
-        mesh = mesh_mod.make_mesh((n_dev,), ("data",))
+        mesh = mesh_mod.make_mesh((n_dev,), ("data",), local[:n_dev])
         print(f"sharding batch of {B} over {n_dev} devices", file=sys.stderr)
 
     d0 = jnp.asarray(np.stack([d for d, _ in first]))

@@ -66,7 +66,7 @@ def main(argv=None) -> int:
 
     import jax
 
-    jax.config.update("jax_platforms", "cpu")  # trivial math; skip TPU round trips
+    jax.config.update("jax_platforms", "cpu")  # trivial host-side math: no device needed
 
     from ..dataset import tum_rgbd
     from ..eval import ate as ate_mod

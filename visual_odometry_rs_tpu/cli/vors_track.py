@@ -34,7 +34,7 @@ def main(argv=None) -> int:
     parser.add_argument("--candidate-cap", type=int, default=8192)
     parser.add_argument(
         "--interp",
-        choices=["auto", "gather", "onehot", "onehot_weighted", "pallas"],
+        choices=["auto", "gather", "onehot", "onehot_weighted"],
         default="auto",
         help="bilinear sampling implementation",
     )
@@ -66,7 +66,7 @@ def main(argv=None) -> int:
         "--dso-a", type=float, default=1.0,
         help="DSO regional threshold coefficient a in a*(mean3x3(median)+b)^2 "
         "(dso.rs:74: '(2.0,3) in dso and (1.0,3) in ldso'); lower it on "
-        "weakly-textured scenes — see docs/PERF.md 'Candidate selectors'",
+        "weakly-textured scenes (tools/accuracy_matrix.py)",
     )
     parser.add_argument(
         "--brightness-model", action="store_true",
@@ -108,21 +108,13 @@ def main(argv=None) -> int:
         "--chunk", type=int, default=0, metavar="N",
         help="fused serving mode: track N frames per device dispatch with the "
         "lax.scan clip driver (keyframe switching in-graph); trajectory lines "
-        "print once per chunk instead of per frame — the mode for remote/"
-        "high-latency TPU transports",
+        "print once per chunk instead of per frame — one host round trip "
+        "per chunk",
     )
     _common.add_compilation_cache_arg(parser)
     parser.add_argument("--save-state", help="checkpoint tracker state here at the end")
     parser.add_argument("--resume", help="restore tracker state from a checkpoint")
     args = parser.parse_args(argv)
-    if args.interp == "pallas" and (args.robust_delta > 0.0 or args.brightness_model):
-        print(
-            "--interp pallas is a retired reference kernel and does not "
-            "support --robust-delta/--brightness-model (see docs/PERF.md)",
-            file=sys.stderr,
-        )
-        return 1
-
     _common.apply_compilation_cache(args)
     if args.cpu:
         import jax

@@ -1,6 +1,6 @@
 """Core VO building blocks: camera model, inverse depth, candidate selection.
 
-TPU-native analog of reference ``src/core/`` (minus the tracker itself,
+Fixed-shape JAX analog of reference ``src/core/`` (minus the tracker itself,
 which lives in ``models/`` as the flagship estimation model).
 """
 

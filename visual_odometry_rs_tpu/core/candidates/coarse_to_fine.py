@@ -6,9 +6,8 @@ level keeps, inside every 2x2 block under a selected coarse pixel, the pixel
 with the largest gradient plus the second-largest if
 ``second > third + diff_threshold`` (coarse_to_fine.rs:64-89).
 
-TPU-first design: the per-block top-2 selection is a rank computation over
-the 4 stacked block corners — pure elementwise comparisons on the VPU, no
-sort, no data-dependent shapes.  Output is a boolean mask per level (the
+Design: the per-block top-2 selection is a rank computation over the 4
+stacked block corners — pure elementwise comparisons, no sort, no data-dependent shapes.  Output is a boolean mask per level (the
 finest mask is the one the tracker consumes,
 ref inverse_compositional.rs:120-125).
 """
@@ -33,12 +32,11 @@ def _prune_block(thresh, a, b, c, d):
     network on the four (H/2, W/2) maps directly.  The previous version
     materialized (4, 4, H/2, W/2) pairwise ``beats`` tensors plus a lane
     sort — the keyframe precompute is dispatch/bandwidth-bound on exactly
-    such image-sized intermediates (docs/PERF.md round-4 breakdown), and
-    this is numerically identical with ~4x fewer map-sized operations.
+    such image-sized intermediates, and this is numerically identical with ~4x fewer map-sized operations.
     """
     # integer inputs promote to i32 (u16 sqn from the public gradient API);
     # f32 carriers (exact integer values, the precompute's internal
-    # pipeline) compare as-is — same results, native VPU arithmetic
+    # pipeline) compare as-is — same results, native f32 arithmetic
     if jnp.issubdtype(a.dtype, jnp.integer):
         a, b, c, d = (x.astype(jnp.int32) for x in (a, b, c, d))
     cmp_dtype = a.dtype
@@ -140,9 +138,7 @@ def _keep_mask_full(thresh, g):
     itself against its three 2x2-block partners obtained by adjacent-pair
     row/col swaps (pure layout-preserving elementwise ops, so XLA fuses the
     whole rank computation into O(1) kernels; the half-res corner
-    formulation forced layout-hostile (h/2, w/2) slicing both ways — the
-    dominant cost of the measured 7.3 ms select stage, docs/PERF.md
-    round 5).
+    formulation forced layout-hostile (h/2, w/2) slicing both ways).
 
     Tie-break: corner order a<b<c<d == order index ``2*col_parity +
     row_parity`` — x beats y iff ``g_x > g_y`` or equal values with the
@@ -217,14 +213,11 @@ def select(
     ``impl``: "corner" (default — the round-4 half-res corner comparator
     network) or "rolled" (the round-5 full-resolution partner-swap rank
     computation ``_keep_mask_full``; bit-identical output).  RETIRED as the
-    default after an honest in-graph A/B (tools/ab_select.py, B=32 TPU):
-    the rolled form wins at the isolated stage level (12.1 → 9.5 ms, the
-    strided deinterleave/interleave hypothesis was right) but LOSES inside
-    the full precompute program (21.1 → 24.8 ms) — XLA's downstream
-    fusion/layout choices flip the sign in context, the same
-    isolated-vs-in-context trap documented for the Pallas residual kernel
-    (docs/PERF.md).  Kept as a tested variant so the measurement stays
-    reproducible.
+    default after an in-graph A/B (tools/ab_select.py) on the previous
+    accelerator: faster as an isolated stage, slower inside the full
+    precompute program, where XLA's downstream fusion and layout choices
+    flipped the sign.  Kept as a tested variant until an A/B on the GPU
+    decides it.
     """
     coarsest = gradient_sq_levels[-1]
     masks = [jnp.ones(coarsest.shape, dtype=bool)]

@@ -1,4 +1,4 @@
-"""DSO candidate-point selection, vectorized for TPU.
+"""DSO candidate-point selection, vectorized.
 
 Capability parity with reference ``src/core/candidates/dso.rs`` (the faithful
 picker from "Direct Sparse Odometry", Engel et al., PAMI 2018):
@@ -11,7 +11,7 @@ picker from "Direct Sparse Odometry", Engel et al., PAMI 2018):
 4. recursive block-size adaptation toward a target point count with bounds
    (0.8, 4.0) and random thinning above ratio 1.1 (dso.rs:98-147).
 
-TPU-first design: block maxima are reshape+argmax reductions; region medians
+Design: block maxima are reshape+argmax reductions; region medians
 are sorts over fixed 32x32 tiles (edge tiles padded with a +inf sentinel and
 indexed at their true half-length); the ≤2-step recursion stays host-side with
 a statically-shaped jitted core per block size.  The reference's

@@ -10,7 +10,8 @@ helpers in ``src/misc/helper.rs`` / ``src/misc/interop.rs``:
   (tum_rgbd.rs:89-196; plain string splitting replaces the nom parsers)
 - TUM trajectory line serialization ``timestamp tx ty tz qx qy qz qw``
   (tum_rgbd.rs:76-86)
-- 16-bit PNG depth reading and gray conversion (helper.rs:13-36)
+- 16-bit PNG depth reading and gray conversion (helper.rs:13-36), through
+  the native loader or the numpy codec in ``dataset.png``
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 
 from ..core.camera import Intrinsics
 from ..math.pose import Pose
+from . import png
 
 DEPTH_SCALE = 5000.0
 VARIANCE_TUM = 1e-4
@@ -172,42 +174,38 @@ def load_associations(path: str) -> List[Association]:
 def read_png_16bits(path: str) -> np.ndarray:
     """u16 depth PNG → (H, W) uint16 array (helper.rs:13-36).
 
-    Decodes through the native C++ loader (``native/vors_io.cpp``) when
-    available; the PIL fallback below is numerically identical.
+    Decodes through the native C++ loader (``native/vors_io.cpp``) when it
+    builds; the numpy codec (``dataset.png``) gives identical output.
     """
     from .. import native
 
     if native.available():
         return native.read_png_16bits(path)
-    from PIL import Image
-
-    img = Image.open(path)
-    arr = np.asarray(img)
-    if arr.dtype != np.uint16:
-        if arr.dtype == np.int32:  # PIL mode "I"
-            arr = arr.astype(np.uint16)
-        else:
-            raise ValueError(f"expected 16-bit depth PNG, got {arr.dtype}: {path}")
+    arr = png.read(path)
+    if arr.dtype != np.uint16 or arr.ndim != 2:
+        raise ValueError(f"expected a 16-bit gray depth PNG, got {arr.dtype} {arr.shape}: {path}")
     return arr
 
 
 def read_gray(path: str) -> np.ndarray:
-    """Color/gray image → (H, W) uint8 luma (interop.rs + image::to_luma).
+    """Color/gray PNG → (H, W) uint8 luma (interop.rs + image::to_luma).
 
     Uses the same integer luma weights as the Rust ``image`` crate
-    (ITU-R BT.601: (299 R + 587 G + 114 B) / 1000).  Native C++ decode when
-    available, PIL fallback otherwise (identical numerics).
+    (ITU-R BT.601: (299 R + 587 G + 114 B) / 1000); 16-bit gray keeps its
+    high byte.  Native C++ decode when it builds, the numpy codec otherwise
+    (identical numerics).
     """
     from .. import native
 
-    if native.available() and path.lower().endswith(".png"):
+    if native.available():
         return native.read_gray(path)
-    from PIL import Image
-
-    img = Image.open(path)
-    arr = np.asarray(img)
+    arr = png.read(path)
     if arr.ndim == 2:
-        return arr.astype(np.uint8)
+        return (arr >> 8).astype(np.uint8) if arr.dtype == np.uint16 else arr
+    if arr.dtype != np.uint8:
+        raise ValueError(f"unsupported 16-bit colour PNG: {path}")
+    if arr.shape[2] == 2:  # gray + alpha: alpha is dropped
+        return arr[..., 0].copy()
     rgb = arr[..., :3].astype(np.uint32)
     luma = (299 * rgb[..., 0] + 587 * rgb[..., 1] + 114 * rgb[..., 2]) // 1000
     return luma.astype(np.uint8)
@@ -265,20 +263,14 @@ def write_sequence(
 ) -> str:
     """Write a synthetic sequence in TUM on-disk layout; returns the
     associations-file path.  Used by tests and the CLI demo mode."""
-    from PIL import Image
-
     os.makedirs(os.path.join(directory, "depth"), exist_ok=True)
     os.makedirs(os.path.join(directory, "rgb"), exist_ok=True)
     lines = []
     for i, ts in enumerate(timestamps):
         dpath = f"depth/{ts:.6f}.png"
         cpath = f"rgb/{ts:.6f}.png"
-        Image.fromarray(depths[i].astype(np.uint16)).save(
-            os.path.join(directory, dpath)
-        )
-        Image.fromarray(grays[i].astype(np.uint8), mode="L").save(
-            os.path.join(directory, cpath)
-        )
+        png.write(os.path.join(directory, dpath), depths[i].astype(np.uint16))
+        png.write(os.path.join(directory, cpath), grays[i].astype(np.uint8))
         lines.append(f"{ts:.6f} {dpath} {ts:.6f} {cpath}")
     assoc_path = os.path.join(directory, "associations.txt")
     with open(assoc_path, "w") as f:

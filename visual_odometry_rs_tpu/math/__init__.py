@@ -1,6 +1,6 @@
 """Domain-independent math: Lie groups and the iterative-optimizer harness.
 
-TPU-native analog of reference ``src/math/`` (optimizer, se3, so3) plus the
+JAX analog of reference ``src/math/`` (optimizer, se3, so3) plus the
 pose algebra that nalgebra provided to the reference for free.
 """
 

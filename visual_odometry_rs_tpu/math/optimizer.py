@@ -6,7 +6,7 @@ The reference defines an abstract iterative-solver protocol
 ``iterative_solve``.  It is instantiated four times in the reference
 (se3 tracking, 2D affine alignment, Rosenbrock, 1D regression).
 
-This module is the TPU-native analog: the same four-hook decomposition, but
+This module is the JAX analog: the same four-hook decomposition, but
 as pure functions driven by ``lax.while_loop`` so a whole solve jits into a
 single XLA computation (no host round-trips per iteration).  The carry is an
 arbitrary pytree chosen by the instantiation.
@@ -110,7 +110,7 @@ def iterative_solve(
 class LMState(NamedTuple):
     """Accepted LM state: model + quadratic approximation at that model.
 
-    The TPU analog of the reference's ``LMOptimizerState`` + ``EvalData``
+    The analog of the reference's ``LMOptimizerState`` + ``EvalData``
     (lm_optimizer.rs:16-40): ``lm_coef`` is the damping coefficient, and
     (energy, gradient, hessian) always describe the last *accepted* model.
     """

@@ -8,7 +8,7 @@ Twist layout matches the reference (se3.rs:30-40): ``xi = [v, w]`` with the
 linear velocity ``v = xi[0:3]`` first and the angular velocity ``w = xi[3:6]``
 second.
 
-TPU-first notes: both Taylor and exact branches are always evaluated and
+Design notes: both Taylor and exact branches are always evaluated and
 selected with ``jnp.where`` (they are a handful of FLOPs), keeping the
 functions jit/vmap-safe with static shapes, and they broadcast over arbitrary
 leading batch axes.

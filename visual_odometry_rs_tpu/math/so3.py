@@ -5,7 +5,7 @@ Capability parity with reference ``src/math/so3.rs``: ``hat``, ``hat_2``,
 axis-angle), including the Taylor-series branches below the same threshold
 ``theta^2 < (1e-2)^2`` (ref so3.rs:19-20).
 
-TPU-first design notes: there is no data-dependent branching — both the Taylor
+Design notes: there is no data-dependent branching — both the Taylor
 and the exact expressions are evaluated and selected with ``jnp.where`` so the
 functions are jit/vmap-safe with static shapes.  All functions broadcast over
 arbitrary leading batch axes.

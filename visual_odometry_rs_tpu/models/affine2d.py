@@ -15,9 +15,9 @@ Per-pixel Jacobians ``[x gx, x gy, y gx, y gy, gx, gy]`` (affine-2d.rs:408-429,
 composes ``W_old @ W(delta)^-1`` (affine-2d.rs:166-179).  Between pyramid
 levels the translation components are doubled (affine-2d.rs:61-64).
 
-TPU-first design: the template is dense (all pixels are candidates), so the
+Design: the template is dense (all pixels are candidates), so the
 residual pass is one bilinear sample over a fixed (H*W) point grid, and the
-gradient/Hessian reduction is a single fused (6+1)-column matmul on the MXU.
+gradient/Hessian reduction is a single fused (6+1)-column matmul.
 The entire multi-level solve jits into one XLA computation.
 """
 
@@ -121,7 +121,7 @@ def _eval_full(obs: LevelData, params: jnp.ndarray):
     """Energy + gradient + Gauss-Newton Hessian in one fused reduction.
 
     ``g = Jᵀ (r ⊙ m)`` and ``H = (J ⊙ m)ᵀ J`` computed as a single
-    (6, N) x (N, 7) matmul — the MXU-native form of the reference's per-point
+    (6, N) x (N, 7) matmul — the matmul form of the reference's per-point
     accumulation loop (affine-2d.rs:135-152).
     """
     energy, r, mask = _eval_energy(obs, params)

@@ -13,7 +13,7 @@ over every (frame, candidate) pair, with Gauss-Newton/LM on the
 the inverse-depth diagonal (each depth is a scalar block — the
 embarrassingly parallel analog of ``parallel.ba``'s 3x3 point blocks).
 
-TPU-first design:
+Design:
 
 - residuals and Jacobians evaluate for ALL F x N pairs at once (vmap over
   frames of the masked candidate arrays; bilinear sampling through the same
@@ -590,7 +590,7 @@ def solve_window_sharded(
     Same SPMD shape as ``parallel.ba.solve_point_sharded``: every chip
     evaluates residuals/Jacobians and eliminates the scalar depth blocks for
     its own N/n candidates against the replicated window images; one
-    ``psum`` of the (6F, 6F+1) camera system per iteration rides the ICI;
+    ``psum`` of the (6F, 6F+1) camera system per iteration crosses the devices;
     the small camera solve is replicated; depth back-substitution is local.
     Returns replicated poses and the candidate-sharded refined depths.
 
@@ -662,8 +662,7 @@ def solve_window_batched(
     Per-lane accept/reject state is independent, so no lane's LM schedule
     affects another's numbers; lanes agree with per-window ``solve_window``
     calls up to f32 LOWERING noise (vmap changes how XLA lowers the
-    reductions — same effect as docs/PERF.md's batched-interp lowering
-    note), ~1e-5 in pose after a handful of iterations.
+    reductions), ~1e-5 in pose after a handful of iterations.
 
     ``pose_prior``/``idepth_init`` are PER WINDOW (unlike ``solve_window``
     where they are per call): ``pose_prior = (H (B,F,6,F,6), anchors

@@ -9,7 +9,7 @@ against its last K keyframes and, if one of them verifies photometrically,
 adopts the recovered pose and re-activates that keyframe as the anchor —
 the "kidnapped robot returns to a known place" scenario.
 
-TPU-native formulation: all K candidate keyframes are solved in ONE jitted
+Formulation: all K candidate keyframes are solved in ONE jitted
 vmapped coarse-to-fine LM dispatch (the same batched-verification shape as
 ``models/loop_closure.py``); init models are identity ("the camera is near
 one of these keyframes"), NOT the stale current pose — after a kidnap the

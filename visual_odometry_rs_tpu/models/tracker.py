@@ -7,7 +7,7 @@ Gauss-Newton Hessians (the inverse-compositional trick), per-frame
 coarse-to-fine Levenberg-Marquardt alignment on se(3), and keyframe switching
 on mean optical flow >= 1 px at the coarsest level.
 
-TPU-first design (vs the reference's per-point Rust loops):
+Design (vs the reference's per-point Rust loops):
 
 - **Fixed shapes everywhere.** The reference compacts candidates into
   variable-length Vecs (inverse_compositional.rs:260-279) and drops
@@ -17,7 +17,7 @@ TPU-first design (vs the reference's per-point Rust loops):
   the masked count — numerically equivalent to the reference's
   mean-over-inside-points energy.
 - **One fused reduction per LM iteration.** ``g = Jᵀ(r·m)`` and
-  ``H = (J·m)ᵀJ`` are a single (6, N) x (N, 7) matmul on the MXU.
+  ``H = (J·m)ᵀJ`` are a single (6, N) x (N, 7) matmul.
 - **lax.while_loop LM, static 6-level loop.** A whole frame's track — all
   pyramid levels, all LM iterations, the optical-flow check — jits into one
   XLA computation with no host round-trips.
@@ -70,8 +70,8 @@ class TrackerConfig:
     # cap of 20 for every level, lm_optimizer.rs:157).  Tuple indexed by
     # pyramid level (0 = finest), length nb_levels; None = ``max_iterations``
     # everywhere (reference-exact).  The coarse levels only seed the next
-    # level's init, so their budget can often be cut without ATE cost —
-    # measured per-budget on TPU in docs/PERF.md (round 5).
+    # level's init, so their budget can often be cut without ATE cost
+    # (tools/ab_warmstart.py measures it).
     level_max_iterations: Tuple[int, ...] | None = None
     # Per-frame LM warm start (inverse_compositional.rs:177 initializes each
     # frame's model from the PREVIOUS frame's pose — constant-position).
@@ -91,14 +91,13 @@ class TrackerConfig:
     # static per-level candidate capacity; level capacity is
     # min(candidate_cap, pixels at that level)
     candidate_cap: int = 8192
-    # bilinear sampling: "auto" (MXU one-hot on TPU, gather elsewhere), "gather", "onehot"
+    # bilinear sampling: "auto" (= "gather"), "gather", "onehot", "onehot_weighted"
     interp_method: str = "auto"
     # Huber robust weighting of photometric residuals (green-field extension;
     # the reference is plain L2, lm_optimizer.rs:79-81).  0.0 = off
     # (reference-exact).  When on, residuals beyond ``robust_delta``
     # intensity units get IRLS weight delta/|r| — occlusions and specular
-    # outliers stop dragging the solve.  Not supported by the retired Pallas
-    # reference kernel (interp_method="pallas" raises).
+    # outliers stop dragging the solve.
     robust_delta: float = 0.0
     # Affine brightness modeling (green-field; DSO-style): estimate a per-
     # frame gain/bias (a, b) jointly with the pose, residual
@@ -219,9 +218,8 @@ def _keyframe_gradients(img_pyramid: List[jnp.ndarray]):
     """Per-level (gx, gy): centered at level 0, 2x2-block for levels >= 1
     (inverse_compositional.rs:111-117).
 
-    f32 carriers with exact integer values (docs/PERF.md round 4: the TPU
-    VPU emulates i16/i32 arithmetic; the same math in f32 is bit-exact for
-    these < 2^24 integer ranges and measurably cheaper)."""
+    f32 carriers with exact integer values: the same math in f32 is
+    bit-exact for these < 2^24 integer ranges (see ``ops.gradient``)."""
     grads = [gradient_ops.centered_f32(img_pyramid[0])]
     grads.extend(gradient_ops.gradients_xy_f32(img_pyramid))
     return grads
@@ -249,14 +247,14 @@ def _extract_candidates(
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Compact the known-idepth pixels of a level into fixed-size arrays.
 
-    The TPU replacement for the reference's Vec compaction ``extract_z``
+    The fixed-shape replacement for the reference's Vec compaction ``extract_z``
     (inverse_compositional.rs:260-279): a rank-and-scatter compaction —
     gather the known-mask in a STATIC bit-reversed scan order, prefix-sum it
     to get each candidate's output slot, and scatter the flat indices into a
     (cap,)-sized buffer.  O(H·W) bandwidth instead of the O(H·W log) sort
-    structure of ``lax.top_k`` over per-pixel keys (measured 2.8x faster at
-    batch 32 on TPU v5e: the batched keyframe precompute went 65 → 23 ms;
-    output is bit-identical to the top_k formulation).
+    structure of ``lax.top_k`` over per-pixel keys (output is bit-identical
+    to the top_k formulation).  It is the plain reference that
+    ``_extract_level_onehot`` is checked against (``chip_smoke.py``).
 
     Valid candidates are compacted to the FRONT (bucketing relies on this).
     The bit-reversed visiting order means that when more candidates exist
@@ -295,17 +293,14 @@ def _extract_level_onehot(
     depth_scale: float = 0.0,
 ):
     """Candidate compaction + per-candidate channel gathers with ZERO
-    dynamic-index operations — everything is one-hot matmuls (MXU) and
-    elementwise compares (VPU).
+    dynamic-index operations — everything is one-hot matmuls and
+    elementwise compares.
 
-    Motivation (measured, TPU v5e, batch 32): any dynamic gather / scatter /
-    top_k at image scale costs tens of ms inside the fused precompute
-    program (XLA serializes dynamic addressing), while the numerically
-    identical one-hot matmul formulation runs at MXU speed — the same
-    finding that makes ``ops.interp.bilinear_onehot`` the production
-    sampler.  This routine took the batched keyframe precompute from
-    ~102 ms to MXU-bound, which is what makes diverse-batch serving (where
-    keyframe switches fire often) viable.
+    Motivation: on the accelerator this was written for, dynamic gathers,
+    scatters and top_k at image scale were the slowest part of the fused
+    precompute program, and the numerically identical one-hot matmul form
+    was several times faster.  Whether that holds on the GPU is an open
+    A/B against ``_extract_candidates`` (ROADMAP A.2).
 
     Construction: the flat mask is split into chunks of 128; per-chunk
     inclusive ranks come from one (C,128)x(128,128) triangular matmul;
@@ -358,8 +353,8 @@ def _extract_level_onehot(
     # id (chunk_perm < 2^16: 2 bytes) and the exclusive visit-order offset
     # (< hw <= 2^24: 3 bytes).  One nonzero per row -> every lane exact.
     # NOTE a visit-order row permute of the (C, m) channel data itself was
-    # measured MUCH worse (bit-reversed row gathers at image scale,
-    # docs/PERF.md round 4) — only these (C,) vectors live in visit space.
+    # measured much worse (bit-reversed row gathers at image scale) — only
+    # these (C,) vectors live in visit space.
     # byte-decomposition capacity limits: the chunk id rides as 2 bytes and
     # the exclusive offset as 3 — tighter than the generic <2^24 f32 rule,
     # so fail loudly instead of decoding wrong chunk ids on oversized images
@@ -385,16 +380,16 @@ def _extract_level_onehot(
     r = s - off_ex  # 0-based rank within the chunk
     j_nat_i = j_nat.astype(jnp.int32)
     onehot_nat = (iota_c[None, :] == j_nat_i[:, None])  # (cap, C) bool
-    # ALL channel gathers ride ONE bf16 MXU pass: small-int channels are
+    # ALL channel gathers ride ONE bf16 matmul: small-int channels are
     # exact in bf16 directly, and the inverse depth rides as u8 byte planes
-    # (each exact in bf16) — ~4x cheaper than a separate Precision.HIGHEST
+    # (each exact in bf16) — cheaper than a separate Precision.HIGHEST
     # f32 matmul for z.  When the RAW u16 depth map is available (level 0,
     # where the fused idepth pyramid IS ``scale / depth`` at candidate
     # pixels), gather its TWO depth bytes instead of the f32 idepth's FOUR
     # and recompute ``scale / depth`` after the gather — the identical f32
     # division ``from_depth`` performs, so the result is bit-exact, and the
-    # dominant channel matmul shrinks from 7 to 5 byte planes (level 0 is
-    # ~75% of the whole channel-gather cost across the pyramid).
+    # dominant channel matmul shrinks from 7 to 5 byte planes (level 0
+    # holds most of the candidates of the pyramid).
     if depth_u16 is not None:
         d16 = flat_pad(depth_u16, 0).astype(jnp.uint16)
         z_bytes = [
@@ -571,32 +566,9 @@ def _eval_full(
     """Energy + Jᵀr + Σ JJᵀ in one fused masked matmul
     (lm_optimizer.rs:90-107).
 
-    ``method="pallas"`` routes the whole evaluation (warp + bilinear +
-    residual + reductions) through the fused Pallas TPU kernel.
-
     ``robust_delta > 0`` applies Huber IRLS weights (weighted energy,
-    weighted normal equations); the Pallas path does not support it and
-    callers fall back to the XLA paths.
+    weighted normal equations).
     """
-    if robust_delta > 0.0 and method == "pallas":
-        raise ValueError(
-            "interp_method='pallas' does not support robust_delta; use "
-            "'onehot'/'auto' (the Pallas kernel is a retired reference "
-            "implementation — measured 3-7% behind the XLA one-hot path, "
-            "see docs/PERF.md)"
-        )
-    if method == "pallas":
-        from ..ops.pallas import residual_kernel
-
-        k = obs.intrinsics
-        intr_params = jnp.stack([k.cx, k.cy, k.fx, k.fy, k.skew])
-        m, rsq, count = residual_kernel.fused_residual_reduce(
-            image, obs.xs, obs.ys, obs.idepth, obs.tmpl_vals,
-            obs.valid, obs.jacobians, model.q, model.t, intr_params,
-            interpret=jax.default_backend() != "tpu",
-        )
-        energy = rsq / count
-        return energy, m[:, 6], m[:, :6]
     energy, r, inside = _eval_energy(obs, image, model, method)
     maskf = inside.astype(Float)
     if robust_delta > 0.0:
@@ -685,12 +657,6 @@ def _eval_full_brightness(
     stacked signs work out so one (8, N) x (N, 9) matmul yields a system
     whose solution updates both (pose IC-inverse, ab additive).
     """
-    if method == "pallas":
-        raise ValueError(
-            "interp_method='pallas' does not support brightness_model; use "
-            "'onehot'/'auto' (the Pallas kernel is a retired reference "
-            "implementation, see docs/PERF.md)"
-        )
     a, b = bst.ab[0], bst.ab[1]
     u, v = camera_mod.warp(bst.pose, obs.xs, obs.ys, obs.idepth, obs.intrinsics)
     vals, in_img = interp.bilinear(image, u, v, method)
@@ -795,7 +761,7 @@ class TrackResult(NamedTuple):
     flow: jnp.ndarray  # mean abs optical flow at coarsest level (px)
     # per-level LM iteration counts, (nb_levels,) int32 indexed by level
     # (0 = finest) — observability for the warm-start/iteration-budget
-    # tuning (docs/PERF.md round 5); the counts come straight out of the
+    # tuning (tools/ab_warmstart.py); the counts come straight out of the
     # while_loop carries, so exposing them costs nothing
     nb_iters: jnp.ndarray
 
@@ -955,8 +921,8 @@ class Tracker:
             )
         # One fused jit per frame: pyramid + 6-level LM + pose bookkeeping.
         # Everything stays on-device; the only host sync per frame is the
-        # single (2,) diagnostics fetch in ``track`` (critical over remote
-        # TPU transports, where every un-jitted op is a round trip).
+        # single (2,) diagnostics fetch in ``track``: every un-jitted op
+        # would be a device dispatch of its own.
         def _step(kf, img, kf_pose, cur_pose, prev_pose):
             pyr = pyramid_ops.mean_pyramid(config.nb_levels, img)
             init_model = warm_start_init(config, kf_pose, cur_pose, prev_pose)

@@ -5,11 +5,12 @@ u16-PNG decode, the ``image`` crate's ``to_luma`` at ``vors_track.rs:143``);
 this package binds the C++ equivalent (``native/vors_io.cpp``: libpng decode
 plus a multi-threaded prefetching frame loader) via ctypes.
 
-The library is compiled on first use with ``g++`` if the shared object is
-missing (no pip/apt needed — libpng/zlib and the toolchain are in the image)
-and cached next to this file.  Every entry point degrades gracefully:
-``available()`` is False when compilation fails, and callers (``dataset``)
-fall back to the pure-Python PIL path with identical numerics.
+The library is compiled with ``g++`` against libpng on first use, and again
+whenever ``native/vors_io.cpp`` is newer than it, so it is only ever built
+from the committed source; it is cached next to this file.  Every entry
+point degrades gracefully: ``available()`` is False when the toolchain or
+libpng is missing, and callers (``dataset``) fall back to the numpy PNG
+codec (``dataset.png``) with identical numerics.
 """
 
 from __future__ import annotations
@@ -47,6 +48,14 @@ def _compile() -> bool:
     return proc.returncode == 0 and os.path.exists(_SO)
 
 
+def _stale() -> bool:
+    """True when the shared object is missing or older than its source."""
+    if not os.path.exists(_SO):
+        return True
+    src = os.path.abspath(_SRC)
+    return os.path.exists(src) and os.path.getmtime(src) > os.path.getmtime(_SO)
+
+
 def _load() -> Optional[ctypes.CDLL]:
     global _lib, _load_failed
     if _lib is not None or _load_failed:
@@ -54,7 +63,7 @@ def _load() -> Optional[ctypes.CDLL]:
     with _lock:
         if _lib is not None or _load_failed:
             return _lib
-        if not os.path.exists(_SO) and not _compile():
+        if _stale() and not _compile():
             _load_failed = True
             return None
         try:

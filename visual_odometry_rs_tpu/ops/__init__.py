@@ -1,6 +1,6 @@
 """Image compute ops: pyramids, gradients, bilinear sampling.
 
-The TPU-native kernel layer replacing the reference's per-pixel Rust loops
+The fixed-shape kernel layer replacing the reference's per-pixel Rust loops
 (``src/core/multires.rs``, ``src/core/gradient.rs``, and the interpolation in
 ``src/core/track/lm_optimizer.rs:227-251``).
 """

@@ -111,9 +111,9 @@ def gradients_xy(img_pyramid: List[jnp.ndarray]) -> List[Tuple[jnp.ndarray, jnp.
 
 # f32 internal pipeline (round 4) --------------------------------------------
 #
-# TPU VPUs are f32 machines; the i16/i32 gradient arithmetic above lowers to
-# emulated integer ops.  Every value here is an integer < 2^24, so the same
-# math in f32 is EXACT: differences of u8 pixels are exact, halving is exact
+# Every value here is an integer < 2^24, so the i16/i32 gradient arithmetic
+# above is EXACT in f32 as well (and f32 is what the accelerator's vector
+# units are built for): differences of u8 pixels are exact, halving is exact
 # (x*0.5 of an integer-valued f32), truncation toward zero (`jnp.trunc`)
 # reproduces Rust integer division bit-for-bit, and squared norms are
 # <= 2*127^2 < 2^24.  The keyframe precompute uses these internally; the

@@ -7,18 +7,16 @@ identical copy in ``examples/optim_affine-2d.rs:382-406``): with
 with bilinear weights ``(a, b) = (x-u, y-v)``; outside points contribute
 nothing (the reference drops them from the residual vector, we return a mask).
 
-TPU-first design: two interchangeable implementations —
+Three interchangeable implementations:
 
-- ``bilinear_gather``: XLA gather via advanced indexing.  Simple, and XLA
-  lowers it to dynamic-gather loops on TPU.
-- ``bilinear_onehot``: reformulates sampling as two small matmuls
+- ``bilinear_gather``: XLA gather via advanced indexing (the default).
+- ``bilinear_onehot``: reformulates sampling as matrix products
   ``out = rowsel(N,H) @ img(H,W) . colsel(N,W)`` where the one-hot selection
-  matrices carry the bilinear weights.  This maps the gather onto the MXU
-  (TPU's systolic array) instead of scalar gathers — the classic way to make
-  irregular memory access TPU-native when the table (image level) is small
-  enough. Weighted one-hots make vertical+horizontal interpolation exact.
+  matrices carry the bilinear weights, so the gather becomes dense matmul
+  work when the table (image level) is small enough.
+- ``bilinear_onehot_weighted``: one weighted-selector matmul.
 
-Both return ``(values, inside_mask)`` with fixed shapes.
+All return ``(values, inside_mask)`` with fixed shapes.
 """
 
 from __future__ import annotations
@@ -76,20 +74,20 @@ def bilinear_gather(
 def bilinear_onehot(
     img: jnp.ndarray, x: jnp.ndarray, y: jnp.ndarray
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Bilinear sample via one-hot matmuls (MXU path).
+    """Bilinear sample via one-hot matmuls.
 
     Row gather as an **exact bf16 matmul**: the selector matrix holds pure
     0/1 one-hots for rows v0 and v1 stacked into (2N, H), the image is u8
     (0..255 — exactly representable in bf16, as are 0/1), and each output
     element accumulates exactly one nonzero product into the f32 accumulator
-    — so a default-precision bf16 MXU pass gathers rows *bit-exactly*,
-    without the 3-6x cost of ``Precision.HIGHEST``.  The fractional bilinear
-    weights (a, b) are then applied in f32 on the VPU:
+    — so a default-precision bf16 matmul gathers rows *bit-exactly*,
+    without the cost of ``Precision.HIGHEST``.  The fractional bilinear
+    weights (a, b) are then applied elementwise in f32:
     ``val = Σ_w cols[n,w] · ((1-b) g0 + b g1)[n,w]`` with ``cols`` the
     (1-a)/a-weighted column one-hots.
 
-    Cost: 2·N·H·W bf16 MACs on the MXU + O(N·W) VPU flops.  For pyramid
-    levels this beats scalar gathers on TPU; use ``bilinear_gather`` on CPU.
+    Cost: 2·N·H·W bf16 MACs + O(N·W) elementwise flops: it scales with the
+    level's H·W, where the gather does not.
     """
     height, width = img.shape[-2:]
     n = x.shape[-1]
@@ -113,8 +111,8 @@ def bilinear_onehot(
     ) or img.dtype == jnp.bfloat16
     if exact_in_bf16:
         # u8/i8 pixels and 0/1 selectors are exact in bf16, and each output
-        # element sums exactly one nonzero product -> default-precision bf16
-        # MXU pass is bit-exact.  Wider integers (u16 depth maps etc.) do NOT
+        # element sums exactly one nonzero product -> a default-precision
+        # bf16 matmul is bit-exact.  Wider integers (u16 depth maps etc.) do NOT
         # fit bf16's 8-bit significand and take the exact f32 branch below.
         gathered = jnp.dot(
             sel01.astype(jnp.bfloat16),
@@ -122,7 +120,7 @@ def bilinear_onehot(
             preferred_element_type=Float,
         )  # (2N, W)
     else:
-        # float or wide-integer images: keep full f32 through the MXU
+        # float or wide-integer images: keep full f32 through the matmul
         gathered = jnp.dot(
             sel01.astype(Float),
             img.astype(Float),
@@ -180,14 +178,8 @@ def bilinear_onehot_weighted(
 def bilinear(
     img: jnp.ndarray, x: jnp.ndarray, y: jnp.ndarray, method: str = "auto"
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Dispatch bilinear sampling.
-
-    ``auto`` picks the MXU one-hot path on TPU (measured ~2x faster for the
-    tracker's point counts) and the gather path elsewhere.
-    """
-    if method == "auto":
-        method = "onehot" if jax.default_backend() == "tpu" else "gather"
-    if method == "gather":
+    """Dispatch bilinear sampling; ``auto`` is ``gather`` on every backend."""
+    if method in ("auto", "gather"):
         return bilinear_gather(img, x, y)
     if method == "onehot":
         return bilinear_onehot(img, x, y)

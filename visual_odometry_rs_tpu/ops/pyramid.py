@@ -8,9 +8,9 @@ Capability parity with reference ``src/core/multires.rs``:
   drop the last row/col; returns None below 2 pixels.
 - ``limited_sequence`` / ``sequence`` combinators (multires.rs:38-60).
 
-TPU-first design: a 2x2 block reduction is a reshape
+Design: a 2x2 block reduction is a reshape
 ``(H, W) → (H//2, 2, W//2, 2)`` followed by elementwise ops — XLA fuses this
-into a single VPU pass, no kernel needed.  Shapes are static per level; a
+into a single elementwise pass, no kernel needed.  Shapes are static per level; a
 pyramid is a Python list of arrays (one fixed shape per level), which is the
 XLA-friendly representation of a ragged multi-resolution stack.
 """

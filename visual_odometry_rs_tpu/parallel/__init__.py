@@ -4,7 +4,7 @@
 - ``batch``: fully-fused batched multi-sequence tracking (DP over a 'data'
   mesh axis; communication-free SPMD)
 - ``sharded``: candidate-point-sharded LM reductions (TP analog; one psum
-  per iteration over ICI)
+  per iteration across the devices)
 - ``ba``: sliding-window bundle adjustment with Schur-complement reduction,
   point-sharded across chips
 - ``pose_graph``: loop-closure pose-graph optimization

@@ -3,14 +3,14 @@
 Green-field scaling extension (SURVEY §5 "long-context"): the reference
 processes video strictly frame-by-frame with one keyframe of state and defers
 windowed optimization to future work (reference README.md:54-55).  This
-module provides it, designed for the TPU from the start:
+module provides it, designed for fixed-shape accelerator programs:
 
 - A window of K keyframe poses and P landmark points, with M fixed-shape
   masked observations ``(kf_idx, pt_idx, uv)``.
 - Gauss-Newton/LM over the (6K + 3P)-dim normal equations, reduced by the
   Schur complement: point blocks ``C_p`` are embarrassingly parallel 3x3
   solves; the reduced 6K x 6K camera system ``S = B - F C^-1 F^T`` is
-  assembled with einsums on the MXU.
+  assembled with einsums.
 - **Point-sharded SPMD**: the landmark dimension shards over a mesh axis;
   each chip reduces its own points' contributions to ``S`` and the reduced
   rhs, one ``psum`` assembles the camera system, every chip solves the
@@ -274,7 +274,7 @@ def solve_point_sharded(
     - ``"ring"``: ring reduce-scatter over keyframe block-rows followed by a
       ring all-gather (``parallel.collectives``) — the ring-attention-style
       pass over keyframe shards (SURVEY §5).  This is a *bandwidth-shaped*
-      all-reduce: partial sums travel the device ring over ICI in K/n
+      all-reduce: partial sums travel the device ring in K/n
       block-row chunks, but the trailing all-gather still materializes the
       complete (K,6,K,6) fill-in on every chip before the (replicated)
       camera solve — peak memory matches ``"psum"``; only the communication

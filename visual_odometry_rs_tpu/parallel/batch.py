@@ -1,7 +1,7 @@
 """Batched, fully-fused, shardable multi-sequence tracking.
 
 The reference tracks one sequence on one core with host-side keyframe
-switching (``vors_track.rs:49-64``).  This module is the TPU scaling path:
+switching (``vors_track.rs:49-64``).  This module is the scaling path:
 
 - ``track_step``: one frame of one sequence as a *pure function* of tracker
   state — pyramid, 6-level LM, flow check and keyframe switch all inside jit.
@@ -19,7 +19,6 @@ switching (``vors_track.rs:49-64``).  This module is the TPU scaling path:
 
 from __future__ import annotations
 
-import dataclasses
 from functools import partial
 from typing import NamedTuple
 
@@ -51,7 +50,7 @@ class StepDiagnostics(NamedTuple):
     # all-False unless a RelocRing is threaded through the scan)
     relocalized: jnp.ndarray
     # per-level LM iteration counts, (..., nb_levels) int32 (0 = finest) —
-    # the warm-start/iteration-budget observability (docs/PERF.md round 5)
+    # the warm-start/iteration-budget observability (tools/ab_warmstart.py)
     nb_iters: jnp.ndarray
 
 
@@ -61,8 +60,7 @@ class RelocRing(NamedTuple):
     The batched analog of the host ``Tracker``'s ``_reloc_history``
     (models/relocalize.py): leaves carry ``(B, R, ...)``; ``count`` is the
     number of filled slots and ``head`` the next write position.  Slots are
-    written with one-hot selects (no dynamic indexing — the measured poison
-    on this TPU, docs/PERF.md)."""
+    written with one-hot selects (no dynamic indexing)."""
 
     kf: KeyframeData  # leaves (B, R, ...)
     pose_q: jnp.ndarray  # (B, R, 4) keyframe camera-to-world quaternions
@@ -95,7 +93,7 @@ def track_step(
     pure function with the keyframe switch as a masked select, so it vmaps
     and shards.  The keyframe precompute runs every frame under SPMD (both
     branches of a data-dependent switch are materialized); this trades FLOPs
-    for branch-free batched execution — the standard TPU divergence tradeoff.
+    for branch-free batched execution — the standard SIMD divergence tradeoff.
     """
     init_model = pose_mod.compose(pose_mod.inverse(state.current_pose), state.keyframe_pose)
     pyr = pyramid_ops.mean_pyramid(config.nb_levels, img)
@@ -120,22 +118,6 @@ def track_step(
         flow=result.flow, failed=result.failed, switched=switch,
         relocalized=jnp.zeros_like(switch), nb_iters=result.nb_iters,
     )
-
-
-def _resolve_batched_interp(config: TrackerConfig) -> TrackerConfig:
-    """Resolve interp ``"auto"`` for BATCHED tracking on TPU.
-
-    Single-stream "auto" picks the exact-bf16 ``onehot`` (fastest there,
-    docs/PERF.md), but under ``vmap`` the lowering changes: the single
-    weighted selector of ``onehot_weighted`` is measured ~50% faster in the
-    fused batch-32 scan (3790 vs 2510 fps/chip, ``tools/ab_interp_scan.py``)
-    — XLA lowers the batched dot-of-one-hot as a gather instead of a dense
-    (B, 2N, H)x(B, H, W) matmul.  Explicit methods are honored unchanged;
-    both variants agree within f32 rounding.
-    """
-    if config.interp_method == "auto" and jax.default_backend() == "tpu":
-        return dataclasses.replace(config, interp_method="onehot_weighted")
-    return config
 
 
 def batched_init_state(
@@ -201,7 +183,6 @@ def batched_track_step(
     imgs: jnp.ndarray,
 ):
     """vmap of ``track_step`` over the leading batch (sequence) axis."""
-    config = _resolve_batched_interp(config)
     return jax.vmap(
         lambda s, d, i: track_step(config, intrinsics, s, d, i)
     )(state, depths, imgs)
@@ -211,8 +192,7 @@ def _lane_onehot(pending: jnp.ndarray, k_sub: int) -> jnp.ndarray:
     """(K, B) bool selector: slot k ↦ the k-th pending lane in lane order.
 
     Rows beyond the pending count are all-zero.  Built from a cumsum rank and
-    an equality compare — no dynamic indexing (dynamic gathers at image scale
-    are the measured bottleneck on this TPU, docs/PERF.md)."""
+    an equality compare — no dynamic indexing."""
     ranks = jnp.cumsum(pending.astype(jnp.int32)) - 1  # (B,)
     slots = jax.lax.iota(jnp.int32, k_sub)  # (K,)
     return jnp.logical_and(pending[None, :], ranks[None, :] == slots[:, None])
@@ -223,7 +203,7 @@ def _onehot_rows(sel: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
 
     ``sel`` is 0/1 with at most one nonzero per row; all-zero rows produce
     zeros.  Works for ANY dtype bit-exactly: the array is bit-cast to u8 byte
-    planes (every byte value 0-255 is exact in bf16), moved with one bf16 MXU
+    planes (every byte value 0-255 is exact in bf16), moved with one bf16
     matmul, and reassembled.  Because the matmul only ever sees finite u8
     values, lanes containing NaN-encoding f32 bits move without triggering
     ``0 * NaN`` poisoning.  This is the batch-lane analog of the channel
@@ -455,10 +435,10 @@ def _lazy_switch_step(
     def recompute(kf_old, kf_pose_old, ring_in):
         # All lanes recompute, per-lane select.  The "per-lane cond via
         # scan-over-lanes" alternative (only switching lanes execute the
-        # precompute, serially) was implemented and MEASURED WORSE on the
-        # diverse benchmark: 853 vs 1066 fps at cadence 1, and 1024 vs 1913
-        # at cadence 4 — batch-1 precomputes underutilize the MXU and the
-        # scan serializes them, which loses badly exactly when cadence
+        # precompute, serially) was implemented and measured worse on the
+        # diverse benchmark on the previous accelerator, at cadence 1 and
+        # more so at cadence 4 — batch-1 precomputes underuse the device and
+        # the scan serializes them, which loses badly exactly when cadence
         # batching concentrates many lane-switches onto one frame.
         new_kf = vm(
             lambda d1, *p: tracker_mod.precompute_keyframe(
@@ -480,7 +460,7 @@ def _lazy_switch_step(
 
     def recompute_sub(kf_old, kf_pose_old, ring_in):
         # Sub-batch switch compaction: the precompute's cost scales with the
-        # number of lanes it runs on (channel gathers dominate, docs/PERF.md),
+        # number of lanes it runs on (channel gathers dominate),
         # but on a typical diverse check frame only 1-4 of B lanes actually
         # pend.  Compact the pending lanes into a fixed K-lane sub-batch with
         # one-hot byte-plane matmuls (bit-exact, `_onehot_rows`), precompute
@@ -664,9 +644,9 @@ def batched_track_sequence(
     compiles the same per-lane precompute at a different batch size; the
     lane movement itself is bit-exact).  Cheaper because precompute cost
     scales with the lane count it runs on — though sub-linearly: small
-    sub-batches underutilize the MXU, so the measured optimum at B=32 is
-    ``K_sub = B/4`` (+14% over all-lanes; full K sweep in docs/PERF.md).
-    ``switch_subbatch=-1`` selects that auto rule, ``max(1, B // 4)``.
+    sub-batches underuse the device.  ``switch_subbatch=-1`` selects the
+    rule ``K_sub = max(1, B // 4)``, the optimum of a K sweep at B=32 on the
+    previous accelerator; ``tools/ab_subbatch.py`` re-measures it.
 
     For chunked serving (``vors_batch --chunk``), thread the cadence state
     across dispatches: pass ``pending0=`` the previous chunk's pending mask,
@@ -678,7 +658,6 @@ def batched_track_sequence(
     lane's previous pose; chunked callers thread it via ``prev_pose0=`` /
     ``return_prev=True`` (default: zero velocity at the scan start).
     """
-    config = _resolve_batched_interp(config)
     nb_frames = depths.shape[0]
     batch = depths.shape[1]
     if switch_subbatch == -1:

@@ -3,7 +3,7 @@
 The reference has no communication layer at all (no networking deps,
 Cargo.toml:16-24).  This module provides the ring primitives the scaled
 framework uses for keyframe-sharded reductions — the VO analog of
-ring-attention passes: partial sums travel around the device ring over ICI,
+ring-attention passes: partial sums travel around the device ring,
 each hop overlapping the local accumulation, so no chip ever materializes
 the full replicated reduction buffer.
 

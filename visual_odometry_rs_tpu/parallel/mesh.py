@@ -1,10 +1,11 @@
 """Device-mesh helpers.
 
 The reference is single-threaded with no scaling layer (SURVEY §2.3); this is
-the green-field TPU scaling foundation: meshes over which the batched tracker
+the green-field scaling foundation: meshes over which the batched tracker
 (data parallelism over sequences) and the sharded reductions (candidate-point
-parallelism) are laid out.  Collectives compile to ICI transfers inside a
-slice via standard XLA lowering of ``psum``/``all_gather``.
+parallelism) are laid out.  Every GPU of a host reaches every other at the
+same rate (NVLink, all to all), so a flat 1D mesh over ``jax.devices()``
+serves; XLA lowers ``psum``/``all_gather`` to NCCL collectives.
 """
 
 from __future__ import annotations
@@ -17,13 +18,14 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
 def init_distributed(coordinator_address=None, num_processes=None, process_id=None):
-    """Initialize multi-host JAX (DCN layer).
+    """Initialize multi-host JAX.
 
-    Thin wrapper over ``jax.distributed.initialize`` so multi-host pods use
-    the same meshes/collectives as single-host: after initialization,
-    ``jax.devices()`` spans all hosts and ``make_mesh`` lays axes across ICI
-    within a slice and DCN across slices in XLA's default device order.
-    No-op if already initialized.
+    Thin wrapper over ``jax.distributed.initialize`` so several hosts use
+    the same meshes/collectives as one: after initialization,
+    ``jax.devices()`` spans all hosts and ``make_mesh`` lays its axes over
+    them in XLA's default device order.  Pass ``coordinator_address``
+    (``host:port``), ``num_processes`` and ``process_id`` explicitly where no
+    cluster environment provides them.  No-op if already initialized.
     """
     import jax as _jax
 

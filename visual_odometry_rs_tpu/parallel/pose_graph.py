@@ -9,7 +9,7 @@ implementation: given node poses ``T_i`` and relative measurements ``Z_ij``
 
 over right-multiplied twist updates ``T_i <- T_i exp(xi_i)``.
 
-TPU-first design: residuals and their (6, 2x6) Jacobians per edge come from
+Design: residuals and their (6, 2x6) Jacobians per edge come from
 forward-mode autodiff of the exact se3 residual (vmapped over a fixed-shape
 edge array — autodiff through the ``jnp.where``-guarded Taylor branches is
 well-defined), the normal equations are assembled with segment-sums, and the
@@ -381,8 +381,7 @@ def solve_sparse_sharded(
     shards; node-space vectors stay replicated (6N floats per node — tiny)
     and every edge accumulation reduces with one ``psum``.  This is the
     distribution layout for pose-graph optimization at fleet scale (SURVEY
-    §5: PGO "over DCN at the top"): edges partition by trajectory segment,
-    the psum rides the mesh.  Results match ``solve_sparse`` up to f32
+    §5): edges partition by trajectory segment, the psum rides the mesh.  Results match ``solve_sparse`` up to f32
     reduction order.
 
     Edges are padded to a multiple of the mesh axis with weight-0 self

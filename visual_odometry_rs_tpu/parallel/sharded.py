@@ -6,8 +6,8 @@ candidate points: ``g = Jᵀ(r·m)``, ``H = (J·m)ᵀJ``, ``E = Σ r²/Σ m``
 reductions across chips; 6x6 solve replicated").  This module shards the
 candidate axis over a mesh axis with ``shard_map``: each chip warps and
 samples its own slice of points against a replicated image level, reduces
-locally on the MXU, and a single 45-float ``psum`` per LM iteration
-(6x7 matrix + energy + count) rides the ICI.  The damped 6x6 Cholesky solve
+locally, and a single 45-float ``psum`` per LM iteration
+(6x7 matrix + energy + count) crosses the devices.  The damped 6x6 Cholesky solve
 is then computed redundantly on every chip — cheaper than communicating it.
 """
 

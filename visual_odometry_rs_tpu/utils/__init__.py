@@ -1,6 +1,6 @@
 """Small shared utilities: dtype policy, interop, visualization, colormap.
 
-TPU-native analog of reference ``src/misc/``.
+JAX analog of reference ``src/misc/``.
 """
 
 from . import types  # noqa: F401

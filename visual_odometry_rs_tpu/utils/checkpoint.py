@@ -481,8 +481,7 @@ def batch_fingerprint(config, intrinsics, switch_cadence: int) -> str:
     (cadence changes WHICH frames lanes switch keyframes on, so resuming
     under a different cadence silently changes semantics mid-sequence).
     ``switch_subbatch`` is deliberately NOT part of the fingerprint: it is a
-    numerics-equivalent implementation choice (docs/PERF.md), like
-    ``interp_method='auto'`` resolution."""
+    numerics-equivalent implementation choice."""
     payload = {
         "config": _config_payload(config),
         "intrinsics": [

@@ -8,7 +8,7 @@ keyframe's level-0 candidate points through its (loop-closure-optimized)
 camera-to-world pose into one world-frame cloud and serializes it as ASCII
 PLY — readable by MeshLab/CloudCompare/Open3D.
 
-TPU-native formulation: all keyframes are processed in ONE jitted vmapped
+Formulation: all keyframes are processed in ONE jitted vmapped
 dispatch (pyramid + candidate selection + inverse-depth fusion + back-
 projection + rigid transform); the fixed candidate capacity gives static
 shapes, and the ``valid`` mask (selection ∧ known depth) is applied on the

@@ -1,7 +1,7 @@
 """Dtype policy and small type aliases.
 
 The reference fixes ``Float = f32`` for the entire crate
-(``src/misc/type_aliases.rs:10``); f32 is also the natural TPU compute dtype
+(``src/misc/type_aliases.rs:10``); f32 is also the natural accelerator compute dtype
 for this workload (bilinear sampling of 8-bit images and 6x6 normal
 equations), so we keep the same policy.  Images are carried as integer arrays
 (u8 pixels, i16/i32 gradients) exactly like the reference so that pyramid and
